@@ -1,13 +1,13 @@
-"""mlvfs_tpu — a TPU-native Magic Lantern Video (MLV) → CinemaDNG conversion framework.
+"""mlvfs_tpu — an accelerator-side Magic Lantern Video (MLV) → CinemaDNG conversion framework.
 
 A ground-up rebuild of the capabilities of MLVFS (davidmilligan/MLVFS): instead
 of a FUSE filesystem that synthesizes DNG files on demand, this framework is a
-batch conversion engine that streams indexed MLV blocks to TPU devices and runs
+batch conversion engine that streams indexed MLV blocks to a GPU and runs
 the entire raw-processing pipeline (bit unpacking, dual-ISO HDR reconstruction,
 chroma smoothing, bad/focus pixel correction, vertical-stripe fix, pattern-noise
-removal, deflicker) as fused JAX/XLA/Pallas programs over batches of frames.
+removal, deflicker) as fused JAX/XLA programs over batches of frames.
 
-Layering (mirrors SURVEY.md section 1, redesigned TPU-first):
+Layering (mirrors SURVEY.md section 1, redesigned for batched device programs):
 
   - ``mlvfs_tpu.format``   — MLV container model, chunk discovery, XREF index,
                              ``.IDX`` sidecar (reference: mlv.h, raw.h, index.c)

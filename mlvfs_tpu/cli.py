@@ -221,7 +221,7 @@ def cmd_mount(args) -> int:
     )
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="mlvfs-tpu", description=__doc__)
     parser.add_argument("--version", action="version", version=f"mlvfs-tpu {__version__}")
     sub = parser.add_subparsers(dest="command")
@@ -280,7 +280,11 @@ def main(argv=None) -> int:
                          help="do not start the dashboard with the mount")
     _add_processing_flags(p_mount)
     p_mount.set_defaults(func=cmd_mount)
+    return parser
 
+
+def main(argv=None) -> int:
+    parser = build_parser()
     args = parser.parse_args(argv)
     if not getattr(args, "func", None):
         parser.print_help()

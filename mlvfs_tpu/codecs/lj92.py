@@ -1,6 +1,9 @@
 """ctypes bindings for the native LJ92 codec (mlvfs_tpu/native/lj92.cpp).
 
-Builds the shared library on first use (cached next to the source). The
+Builds the shared library on first use, next to the source, under a name
+keyed on a hash of the source and the compiler flags: a library built from
+other source or flags (for example one copied in from another machine) is
+never loaded, and the build is portable (no -march=native). The
 decoder serves LJ92-compressed MLV frames (MLV_VIDEO_CLASS_FLAG_LJ92,
 mlv.h:30; decode call site main.c:617-681); the encoder produces
 lossless-compressed CinemaDNG strips (the reference ships an encoder it
@@ -10,6 +13,7 @@ never calls — lj92.c:1104 — which the compressed-DNG output config needs).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -18,9 +22,25 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_DIR), "native", "lj92.cpp")
-_LIB = os.path.join(os.path.dirname(_DIR), "native", "liblj92.so")
+_FLAGS = ("-O3", "-funroll-loops", "-fPIC", "-shared", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _lib = None
+
+
+def library_path(src: str = _SRC, flags=_FLAGS) -> str:
+    """Where the library built from ``src`` with ``flags`` lives: the file
+    name carries a hash of both."""
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update("\0".join(flags).encode())
+    return os.path.join(os.path.dirname(src), f"liblj92-{h.hexdigest()[:16]}.so")
+
+
+def _build(src: str, lib_path: str, flags=_FLAGS) -> None:
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    subprocess.run(["g++", *flags, "-o", tmp, src], check=True, capture_output=True)
+    os.replace(tmp, lib_path)  # atomic: concurrent builders never see a partial file
 
 
 def _load():
@@ -28,13 +48,10 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(_SRC):
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-funroll-loops", "-fPIC", "-shared", "-std=c++17", "-pthread", "-o", _LIB, _SRC],
-                check=True,
-                capture_output=True,
-            )
-        lib = ctypes.CDLL(_LIB)
+        lib_path = library_path()
+        if not os.path.exists(lib_path):
+            _build(_SRC, lib_path)
+        lib = ctypes.CDLL(lib_path)
         lib.lj92_decode_buf.restype = ctypes.c_int
         lib.lj92_decode_buf.argtypes = [
             ctypes.c_void_p,

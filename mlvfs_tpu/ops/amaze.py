@@ -12,18 +12,15 @@ The reference's highest-quality path (amaze_interpolate, hdr.c:954-1229):
   5. edge-directed 2-tap interpolation of the missing exposure from the
      demosaiced planes, averaged over dir-1/dir/dir+1.
 
-TPU mapping: the squeeze is a row permutation (gather); the 12x11x4-tap
+Device mapping: the squeeze is a row permutation (gather); the 12x11x4-tap
 scorer unrolls into static shifted adds over the EV-mapped grayscale with a
 running argmin (no (12,h,w) stack), and the direction-dependent
 interpolation accumulates the picked/neighbor candidates through a select
-chain. On TPU both run as one VMEM-resident Pallas kernel per row chunk
-(ops/amaze_edge_pallas.py, gated bit-identical to edge_pick_xla); the
-AMaZE core itself lives in amaze_core.py / amaze_pallas.py.
+chain. The AMaZE core itself lives in amaze_core.py.
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -81,23 +78,11 @@ def squeeze_rows(row_bright, h):
     return jnp.where(rb, jnp.minimum(sq_bright, h - 1), sq_dark).astype(jnp.int32)
 
 
-def _use_edge_pallas() -> bool:
-    import os
-
-    mode = os.environ.get("MLVFS_TPU_EDGE_PALLAS", "auto")
-    if mode == "0":
-        return False
-    if mode == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
 def edge_pick_xla(evgray, EW_a, EW_b, s, restricted, h, w):
-    """Edge scoring + direction-averaged pick, XLA form (CPU path and the
-    Pallas equivalence anchor): per-pixel best of 12 directions scored over
-    an 11-offset window (hdr.c:1094-1175), then the EV mean of the picked
-    direction and its two neighbors (hdr.c:1182-1210). Returns the EV-index
-    plane fed to ev2raw."""
+    """Edge scoring + direction-averaged pick: per-pixel best of 12
+    directions scored over an 11-offset window (hdr.c:1094-1175), then the
+    EV mean of the picked direction and its two neighbors
+    (hdr.c:1182-1210). Returns the EV-index plane fed to ev2raw."""
     yy = jnp.arange(h)[:, None]
     xx = jnp.arange(w)[None, :]
     # the four row classes used by the direction table: y + {2s, s, -2s, -3s}
@@ -145,7 +130,7 @@ def edge_pick_xla(evgray, EW_a, EW_b, s, restricted, h, w):
     idxp = jnp.minimum(d_best + 1, nd - 1)
     idxm = jnp.maximum(d_best - 1, 0)
     # accumulate the three per-pixel selections in one pass over directions
-    # (select chain, not take_along_axis — gathers serialize on TPU) without
+    # (select chain, not take_along_axis gathers) without
     # materializing the (12, h, w) candidate stack
     pi0 = pip = pim = None
     for di, (ack, a, b, bck) in enumerate(EDGE_DIRECTIONS):
@@ -183,7 +168,7 @@ def amaze_edge_interpolate(
     xx = jnp.arange(w)[None, :]
     green_site = (xx % 2) != (yy % 2)
     scaled = jnp.where(green_site, _tdiv(raw - black20, 2) + black20, raw)
-    # scatter rows via the inverse permutation (gathers are cheaper on TPU)
+    # scatter rows via the inverse permutation (a row gather)
     inv = jnp.zeros(h, jnp.int32).at[squeezed].set(jnp.arange(h, dtype=jnp.int32))
     sq_img = scaled.astype(jnp.float32)[inv]
 
@@ -204,7 +189,7 @@ def amaze_edge_interpolate(
     evgray = ev_of(gray)
 
     # ---- edge direction scoring (hdr.c:1094-1175) -------------------------
-    # Reformulated for the VPU: each direction's 11-offset search
+    # Reformulated as elementwise passes: each direction's 11-offset search
     #   e_d = sum_j |P1(j)-P2(j)| + |P2(j)-P3(j)| + |P3(j)-P4(j)|
     # is three absolute-difference arrays box-filtered over j — computed with
     # one cumulative sum per difference instead of 11x4 taps per direction.
@@ -231,12 +216,7 @@ def amaze_edge_interpolate(
     EW_a = ev_class(1)    # 'a' taps are always at y + s
     EW_b = ev_class(-2)   # 'b' taps are always at y - 2s
 
-    if _use_edge_pallas():
-        from .amaze_edge_pallas import edge_pick
-
-        interp_ev = edge_pick(evgray, EW_a, EW_b, s, restricted, h, w)
-    else:
-        interp_ev = edge_pick_xla(evgray, EW_a, EW_b, s, restricted, h, w)
+    interp_ev = edge_pick_xla(evgray, EW_a, EW_b, s, restricted, h, w)
     interp_val = ev2raw_at(interp_ev)
 
     region = (yy >= 2) & (yy <= h - 3) & (xx >= 2) & (xx <= w - 3)

@@ -1,11 +1,11 @@
-"""AMaZE demosaic (Aliasing Minimization and Zipper Elimination) — TPU-native.
+"""AMaZE demosaic (Aliasing Minimization and Zipper Elimination) in XLA.
 
 Ground-up JAX reimplementation of the RawTherapee AMaZE port used by the
 reference (amaze_demosaic_RT.c, the a1ex/cr2hdr variant). The reference
 processes 160x160 tiles with 16-pixel aprons and SSE2 vectors; stencil radii
 never exceed the apron, so a frame-wide formulation over a 16-pixel
 reflect-padded array computes identical values while mapping naturally onto
-the VPU (every stage is shifts + elementwise math).
+fused elementwise kernels (every stage is shifts + elementwise math).
 
 Key structural translations:
   * tile borders → one reflect pad of the whole frame (the reference's
@@ -28,24 +28,11 @@ All math is float32, matching the reference's floats.
 from __future__ import annotations
 
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-
-def _use_pallas_scans() -> bool:
-    """Pallas raster-pass kernels on real TPUs (the three in-place scans are
-    ~half the amaze cost as XLA lax.scans — see amaze_scans_pallas);
-    MLVFS_AMAZE_PALLAS=0/1 forces either path."""
-    env = os.environ.get("MLVFS_AMAZE_PALLAS")
-    if env is not None:
-        return env == "1"
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
 
 EPS = 1e-5
 EPSSQ = 1e-10
@@ -99,15 +86,7 @@ def amaze_demosaic(raw: jnp.ndarray):
     """Demosaic a (H, W) float32 mosaic (0..65535 scale) → (R, G, B) planes.
 
     Assumes RGGB (red at even/even), like the reference caller (hdr.c:954).
-    On TPU the whole stage graph runs as one tile-resident Pallas kernel
-    (amaze_pallas, numerically equivalent — gated in
-    tests/test_amaze_scans_pallas.py); this XLA formulation is the CPU path
-    and the reference for equivalence.
     """
-    if _use_pallas_scans():
-        from .amaze_pallas import amaze_demosaic_pallas
-
-        return amaze_demosaic_pallas(raw)
     h, w = raw.shape
     P = 16
     cfa = jnp.pad(raw.astype(jnp.float32) / 65535.0, P, mode="reflect")
@@ -292,7 +271,7 @@ def amaze_demosaic(raw: jnp.ndarray):
     )
     nyq0 = _cells(jnp.where(rbmask & (nyqtest > 0), 1, 0), rbmask).astype(jnp.int32)
 
-    nyq = _nyquist_dilate(nyq0, rbmask, hp, wp)
+    nyq = _nyquist_dilate(nyq0, hp, wp)
 
     # ---- stage: area interpolation in Nyquist regions (amaze:1016-1045) ---
     qh = cfa - 0.5 * (cl + cr_)
@@ -452,7 +431,7 @@ def amaze_demosaic(raw: jnp.ndarray):
     Dgrb1 = jnp.where(bcell, Dgrb0, 0.0)
     Dgrb0 = jnp.where(bcell, 0.0, Dgrb0)
 
-    Dgrb0, Dgrb1 = _chroma_smooth_scan(Dgrb0, Dgrb1, bsite, rbmask, hp, wp)
+    Dgrb0, Dgrb1 = _chroma_smooth_scan(Dgrb0, Dgrb1, hp, wp)
 
     # ---- stage: output (amaze:1401-1468) ----------------------------------
     hv_u, hv_d = s(hvwt, -1, 0), s(hvwt, 1, 0)
@@ -478,9 +457,8 @@ def amaze_demosaic(raw: jnp.ndarray):
 
 # Raster-pass scan grid: the reference's 160-row tiles (128-row step +
 # 16-row aprons, amaze_demosaic_RT.c:135), where it restarts each in-place
-# raster pass. Smaller tiles shorten the sequential chain but measured no
-# faster once the scans are unrolled (work-bound, not chain-bound), so the
-# grid stays reference-exact.
+# raster pass. The grid stays reference-exact: the tile count is the scans'
+# parallel width, the 160-row tile their sequential length.
 SCAN_TILE = 160
 SCAN_STEP = 128
 _APRON = 16
@@ -525,10 +503,6 @@ def _neighbor_refine_scan(wt, hp, wp):
     reference's 160-row tile grid: the reference restarts this pass at every
     tile, so chunks both match its semantics and run in parallel.
     """
-    if _use_pallas_scans():
-        from . import amaze_scans_pallas as sp
-
-        return sp.refine_pallas(wt, hp, wp)
     T = _n_tiles(hp)
     tiles = _chunk_rows(wt, T)               # (T, 160, wp)
     tiles_next = _chunk_rows(jnp.roll(wt, -1, 0), T)
@@ -546,20 +520,16 @@ def _neighbor_refine_scan(wt, hp, wp):
         return new, new
 
     xs = (tiles.transpose(1, 0, 2), tiles_next.transpose(1, 0, 2), jnp.arange(SCAN_TILE))
-    # per-step work is tiny (T, wp); unrolling amortizes the while-loop
-    # overhead that otherwise dominates these row chains on TPU
+    # per-step work is tiny (T, wp); unrolling amortizes the per-iteration
+    # loop overhead of these row chains
     _, rows = jax.lax.scan(step, tiles[:, 0], xs, unroll=16)
     return _unchunk_rows(rows.transpose(1, 0, 2), hp)
 
 
-def _nyquist_dilate(nyq, rbmask, hp, wp):
+def _nyquist_dilate(nyq, hp, wp):
     """Sequential majority-vote dilation (amaze:998-1010): rows via lax.scan
     over the 160-row tile chunks, the within-row chain on new[x-2] via an
     associative scan over 2-state transfer functions."""
-    if _use_pallas_scans():
-        from . import amaze_scans_pallas as sp
-
-        return sp.dilate_pallas(nyq, hp, wp)
     T = _n_tiles(hp)
     t_o = _chunk_rows(nyq, T).transpose(1, 0, 2)           # (160, T, wp)
     t_d1 = _chunk_rows(jnp.roll(nyq, -1, 0), T).transpose(1, 0, 2)
@@ -601,15 +571,11 @@ def _nyquist_dilate(nyq, rbmask, hp, wp):
     return _unchunk_rows(rows.transpose(1, 0, 2), hp)
 
 
-def _chroma_smooth_scan(D0, D1, bsite, rbmask, hp, wp):
+def _chroma_smooth_scan(D0, D1, hp, wp):
     """Directional chrominance interpolation, in-place raster semantics
     (amaze:1386-1398). At R sites updates plane 1 (G-B), at B sites plane 0.
     Row y reads rows y-3, y-1 (updated) and y+1, y+3 (original). Chunked on
     the reference's tile grid like the other raster passes."""
-    if _use_pallas_scans():
-        from . import amaze_scans_pallas as sp
-
-        return sp.chroma_pallas(D0, D1, hp, wp)
     T = _n_tiles(hp)
     chunks = {}
     for name, dy in (("o", 0), ("d1", 1), ("d3", 3)):
@@ -662,7 +628,7 @@ def _chroma_smooth_scan(D0, D1, bsite, rbmask, hp, wp):
 
     init = jnp.zeros((2, 3, T, wp), D0.dtype)
     xs = (chunks["o"], chunks["d1"], chunks["d3"], jnp.arange(SCAN_TILE))
-    # unroll=4 measured best for this scan (larger carry → unroll=16 regresses)
+    # a smaller unroll than the other two scans: this one carries six rows
     _, rows = jax.lax.scan(step, init, xs, unroll=4)  # rows: (160, 2, T, wp)
     out0 = _unchunk_rows(rows[:, 0].transpose(1, 0, 2), hp)
     out1 = _unchunk_rows(rows[:, 1].transpose(1, 0, 2), hp)

@@ -5,7 +5,7 @@ uint16 and hdr.c:1488-1500 for the 20-bit path): for every 2x2 Bayer cell,
 compute the median of (R−G) and (B−G) in EV space over the surrounding cells
 (5/9/25 of them), and reapply those chroma offsets to the cell's mean green.
 
-TPU mapping: one whole-frame raw->EV table lookup (the only gather), then
+Device mapping: one whole-frame raw->EV table lookup (the only gather), then
 the per-cell neighborhood loop unrolls into K static strided slices of the
 EV image; the median is a sort over the K-axis; the conditional writes are
 reshape interleaves + masked selects (no scatters). Everything fuses into
@@ -54,8 +54,7 @@ def chroma_smooth_image(
     non-negative EV in [0, 14*EVR) back to raw (black added here).
 
     The transforms are callables so callers choose between LUT gathers and
-    the gather-free evarith forms (both bit-exact; the arithmetic one is
-    ~20x cheaper per pixel on TPU)."""
+    the gather-free evarith forms (both bit-exact)."""
     h, w = img.shape
     offs = _offsets(method)
     x0, y0 = 4, 4
@@ -71,11 +70,10 @@ def chroma_smooth_image(
     # collapse to one)
     E = ev_of(src)
 
-    # Strided (2,2) slices on the minor dim are expensive on TPU, and the
-    # neighborhood loop needs 3 per offset. All cell offsets are even, so
-    # four Bayer-phase planes (one strided slice each) turn every neighbor
-    # read into a unit-stride slice of a phase plane — the per-offset cost
-    # collapses to (almost) free views.
+    # The neighborhood loop needs 3 strided (2,2) slices per offset. All
+    # cell offsets are even, so four Bayer-phase planes (one strided slice
+    # each) turn every neighbor read into a unit-stride slice of a phase
+    # plane — the per-offset cost collapses to (almost) free views.
     def _phase(a, dy, dx):
         return jax.lax.slice(a, (dy, dx), (a.shape[0], a.shape[1]), (2, 2))
 
@@ -129,8 +127,8 @@ def chroma_smooth_image(
     out_r = jnp.where(ok, to_raw(ge + dr), cells(0, 0)).astype(img.dtype)
     out_b = jnp.where(ok, to_raw(ge + db), cells(1, 1)).astype(img.dtype)
 
-    # write back via reshape interleave + masked select (strided scatters
-    # are ~4 ms/frame each on TPU; this is a lane interleave + two wheres)
+    # write back via reshape interleave + masked select instead of strided
+    # scatters (a lane interleave + two wheres)
     z = jnp.zeros_like(out_r)
     spread_r = jnp.stack([jnp.stack([out_r, z], -1).reshape(ny, 2 * nx),
                           jnp.zeros((ny, 2 * nx), img.dtype)], 1).reshape(2 * ny, 2 * nx)
@@ -180,35 +178,16 @@ def _cs_jit_arith(imgs, method, black):
     )(imgs)
 
 
-def _use_cs_pallas() -> bool:
-    import os
-
-    mode = os.environ.get("MLVFS_TPU_CS_PALLAS", "auto")
-    if mode == "0":
-        return False
-    if mode == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
 def chroma_smooth_batch(imgs: jnp.ndarray, method: int, black: int) -> jnp.ndarray:
     """Batch (B, H, W) uint16 chroma smoothing (chroma_smooth, cs.c:49-84).
 
     Uses the gather-free arithmetic EV transforms (exhaustively verified
     bit-exact at first use; see ops/evarith.py) and falls back to the LUT
-    gathers if the live backend ever fails the self-check. On TPU the whole
-    op runs as a VMEM-resident Pallas kernel (ops/chroma_pallas.py, gated
-    bit-identical to the XLA form).
+    gathers if the live backend ever fails the self-check.
     """
     if method not in (2, 3, 5):
         raise ValueError(f"unsupported chroma smooth method {method}")
     if evarith.self_check():
-        if _use_cs_pallas():
-            from .chroma_pallas import chroma_smooth_pallas
-
-            return jax.vmap(
-                lambda im: chroma_smooth_pallas(im, method, int(black))
-            )(imgs)
         return _cs_jit_arith(imgs, method, int(black))
     lut, inv = _luts16(black)
     return _cs_jit(imgs, method, jnp.asarray(lut), jnp.asarray(inv), jnp.int32(black))

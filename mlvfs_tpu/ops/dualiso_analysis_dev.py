@@ -198,8 +198,8 @@ def match_exposures_batch(imgs, is_bright, black20s, white20s, shape, active_y1:
         # statistic AND the highlight selection: the selected pairs
         # (b_lo < bright < b_hi) are a CONTIGUOUS window of the
         # bright-sorted order, so the 230k-element cumsum+scatter
-        # compaction this replaces (~1.2 ms/frame: TPU scatters serialize
-        # per element) becomes a dynamic slice. The RANSAC score is a sum
+        # compaction this replaces (scatters serialize per element)
+        # becomes a dynamic slice. The RANSAC score is a sum
         # over the selected pair SET, so pair order is irrelevant; the
         # hi_nmax cap binds on a different subset than the raster-order
         # reference cap only when >hi_nmax pixels are selected (PSNR-gated

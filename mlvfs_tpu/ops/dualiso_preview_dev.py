@@ -1,10 +1,10 @@
 """Device-side dual-ISO preview analysis (phase detection + histogram fit).
 
-The host path (dualiso.green_phase_histograms + fit_preview) pulls the
+The host reference (dualiso.green_phase_histograms + fit_preview) pulls the
 ~0.2 MB/frame green sample grid to the host for np.bincount and the CDF
-walk — free over PCIe, dominant over a remote relay, and a host sync in
-the middle of every batch either way. This module computes the same fit
-on device (hdr.c:40-183 semantics):
+walk — a host sync in the middle of every batch. This module computes the
+same fit on device (hdr.c:40-183 semantics), and is the only fit the
+conversion path runs:
 
   * per-phase green samples are static strided slices (rows of one
     y-mod-4 phase step 20, one column parity step 4), sorted per frame;
@@ -27,8 +27,7 @@ on device (hdr.c:40-183 semantics):
     cancels heavily.
 
 The preview parity gate (tests/test_parity_dualiso_preview.py, PSNR vs
-the compiled reference) covers this path; MLVFS_TPU_PREVIEW_DEV=0
-restores the host fit.
+the compiled reference) covers this path.
 """
 
 from __future__ import annotations

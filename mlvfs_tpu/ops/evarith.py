@@ -1,11 +1,9 @@
 """Gather-free, *bit-exact* raw<->EV transforms in double-single f32 arithmetic.
 
 The reference's EV tables (get_raw2ev main.c:154-179, get_ev2raw
-main.c:181-196) are pure log2/exp2 curves truncated to int, but a table
-gather on TPU costs ~7.5 ns/element — the two whole-frame EV lookups were
-~24 ms/frame of chroma smoothing's 29-40 ms. These routines compute the
-same integers arithmetically on the VPU, provably matching the f64-built
-tables bit for bit:
+main.c:181-196) are pure log2/exp2 curves truncated to int. These
+routines compute the same integers arithmetically, with no table gather,
+provably matching the f64-built tables bit for bit:
 
   * The tables are black-independent once shifted: raw2ev(p; black) depends
     only on s = p - black, and ev2raw only on the EV index. Both domains are
@@ -21,7 +19,7 @@ tables bit for bit:
     wrong side on any IEEE-f32 backend.
 
 Only IEEE add/sub/mul/div/floor and integer bit ops are used (no backend
-log2/exp2, whose rounding differs between XLA CPU and TPU). Division need
+log2/exp2, whose rounding differs between backends). Division need
 not be correctly rounded: the double-single quotient is residual-corrected.
 
 Double-single primitives follow Dekker (1971) / the QD library's df64
@@ -107,9 +105,9 @@ def _ds_from_const(v: float):
 def _ds_div_ff(a, b):
     """Double-single quotient of two exact f32 values.
 
-    Self-correcting: q1 may be several ULP off (TPU divides via reciprocal);
-    the residual r = a - q1*b is computed exactly and q2 = r/b restores
-    ~2^-45 relative accuracy. A third term guards a 2-ulp-sloppy divider.
+    Self-correcting: q1 may be several ULP off (a backend may divide via a
+    reciprocal); the residual r = a - q1*b is computed exactly and q2 = r/b
+    restores ~2^-45 relative accuracy. A third term guards a 2-ulp-sloppy divider.
     """
     q1 = a / b
     p, perr = _two_prod(q1, b)
@@ -329,26 +327,11 @@ def ev2raw20(ev, black20: int, white20: int, white_ev: int):
 #
 # black/white/white_ev enter only through the integer shell, so verifying
 # the four cores exhaustively proves bit-exactness for EVERY black level
-# and white level at once. self_check() does that (~2.6M values, four tiny
-# device programs) and disk-caches the verdict per backend + module hash so
-# remote-attached TPUs don't pay compile latency on every process launch.
-
-_CHECK_VERSION = 1
+# and white level at once. check_cores() does that (~2.6M values, four tiny
+# device programs); self_check() runs it once per process.
 
 
-def _cache_token() -> str:
-    import hashlib
-
-    dev = jax.devices()[0]
-    with open(os.path.abspath(__file__), "rb") as f:
-        src = f.read()
-    h = hashlib.sha256(src).hexdigest()[:16]
-    return f"evarith-v{_CHECK_VERSION}-{jax.__version__}-{dev.platform}-{getattr(dev, 'device_kind', '?')}-{h}".replace(
-        "/", "_"
-    ).replace(" ", "_")
-
-
-def _run_core_checks() -> None:
+def check_cores() -> None:
     """Raise AssertionError on the first core that disagrees with f64.
 
     Wrapped in ensure_compile_time_eval: self_check() may legitimately be
@@ -385,31 +368,15 @@ def _run_core_checks() -> None:
 @functools.lru_cache(maxsize=None)
 def self_check() -> bool:
     """True iff the arithmetic transforms are verified bit-exact on the live
-    backend (exhaustive core check, disk-cached). Callers fall back to the
-    LUT gathers on False. MLVFS_TPU_EVARITH=0 forces the LUT path, =force
-    trusts without checking, =nocache skips the disk cache.
+    backend (exhaustive core check, once per process). Callers fall back to
+    the LUT gathers on False, with a warning. MLVFS_TPU_EVARITH=0 forces the
+    LUT path.
     """
-    mode = os.environ.get("MLVFS_TPU_EVARITH", "1")
-    if mode == "0":
+    if os.environ.get("MLVFS_TPU_EVARITH", "1") == "0":
         return False
-    if mode == "force":
-        return True
-    cache_dir = os.path.join(
-        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")), "mlvfs_tpu"
-    )
-    marker = os.path.join(cache_dir, _cache_token())
-    if mode != "nocache" and os.path.exists(marker):
-        return True
     try:
-        _run_core_checks()
-    except Exception as exc:  # pragma: no cover - defensive
+        check_cores()
+    except AssertionError as exc:
         warnings.warn(f"evarith self-check failed ({exc}); using LUT gathers")
         return False
-    if mode != "nocache":
-        try:
-            os.makedirs(cache_dir, exist_ok=True)
-            with open(marker, "w") as f:
-                f.write("ok\n")
-        except OSError:
-            pass
     return True

@@ -1,9 +1,8 @@
 """Computed EV transforms — the fast-path alternative to LUT gathers.
 
 The reference's 20-bit raw↔EV tables (build_ev2raw_lut, hdr.c:839-874) are
-pure log2/exp2 curves; on TPU a table lookup is a serialized gather while
-log2/exp2 are single VPU transcendentals, so computing the transform per
-pixel is an order of magnitude faster than gathering from the 4 MB table.
+pure log2/exp2 curves, so the transform can be computed per pixel with
+log2/exp2 instead of gathered from the 4 MB table.
 
 Values match the integer tables up to f32 rounding of the final round();
 the dual-ISO path's parity gate is PSNR, and the parity suite exercises

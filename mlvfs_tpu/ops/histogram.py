@@ -2,8 +2,8 @@
 
 Device equivalents of histogram.c: the reference builds uint16 histograms
 with a stride/skip and walks the CDF for the median (hist_add/hist_median,
-histogram.c:52-75). On TPU these become bincount (scatter-add) + cumsum +
-comparison — batched over frames.
+histogram.c:52-75). On the device these become bincount (scatter-add) +
+cumsum + comparison — batched over frames.
 """
 
 from __future__ import annotations
@@ -36,8 +36,8 @@ def deflicker_median(img: jnp.ndarray, white: int) -> jnp.ndarray:
 
     Computed by value-range bisection instead of a scatter-add histogram +
     CDF walk: the answer is the smallest bin m with count(v <= m) > count/2,
-    found in ~15 compare+reduce passes — identical result, ~8x faster on
-    TPU where scatter-adds serialize.
+    found in ~15 compare+reduce passes — identical result, and no
+    scatter-adds, which serialize on colliding bins.
     """
     import math
 
@@ -49,8 +49,8 @@ def deflicker_median(img: jnp.ndarray, white: int) -> jnp.ndarray:
     if img.ndim == 2 and img.shape[1] % 2 == 0 and n_added == hw // 2:
         # even-width frames: the odd-indexed flat elements are exactly the
         # odd columns — count through a parity mask instead of a strided
-        # odd-index extract (the (hw/2,)-strided relayout was ~90% of the
-        # op's device time; the mask reads 2x the data but stays in layout)
+        # odd-index extract (the mask reads 2x the data but needs no
+        # (hw/2,)-strided relayout)
         x_odd = (jax.lax.broadcasted_iota(jnp.int32, img.shape, 1) & 1) == 1
         v = jnp.minimum(img.astype(jnp.int32), white)
         def count(mid):

@@ -7,9 +7,9 @@ network* pins only the middle output. We use N. Devillard's classic
 networks ("Fast median search: an ANSI C implementation", 1998 — public
 domain): 7 compare-exchanges for K=5, 19 for K=9, 99 for K=25, versus
 48/160/480 min/max ops for the power-of-two-padded bitonic sort they
-replace. On the VPU every compare-exchange is two elementwise ops over
-the whole plane, so this is a direct ~4x cut in the dominant op count
-of the chroma kernels.
+replace. Every compare-exchange is two elementwise ops over the whole
+plane, so this is a direct ~4x cut in the dominant op count of the
+chroma kernels.
 
 Correctness is *proven*, not assumed: `tests/test_medians.py` checks
 every network against the 0-1 principle exhaustively (a comparator

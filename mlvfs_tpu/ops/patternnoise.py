@@ -7,7 +7,7 @@ than a threshold, max ±25), call the difference "noise", mask strong edges
 and near-white pixels, subtract each column's median noise, remove the median
 of the offsets to avoid a cast; transpose and repeat for rows.
 
-TPU mapping of the data-dependent window: the window is a prefix-AND
+Device mapping of the data-dependent window: the window is a prefix-AND
 condition over at most 51 static neighbor offsets, so we materialize the
 (51, H/2, W/2) neighborhood (static shifts, no gathers) and take the k-th
 smallest valid element — with k derived from the per-pixel valid count —
@@ -40,9 +40,9 @@ def _masked_median(stack, valid, axis=0, lo=-(1 << 18), hi=1 << 18):
 
     Binary search over the value range instead of jnp.sort: the answer is
     the smallest v with count(valid & stack <= v) >= k+1, found in
-    ~log2(range) passes of K compares+adds — an order of magnitude cheaper
-    on TPU than the K-wide bitonic sort networks XLA emits (and the
-    take_along_axis it would take to index them per-pixel is a gather)."""
+    ~log2(range) passes of K compares+adds instead of the K-wide sort
+    networks XLA emits (and the take_along_axis it would take to index them
+    per-pixel is a gather)."""
     import math as _math
 
     num = valid.sum(axis=axis)
@@ -140,29 +140,13 @@ def _fix_column_noise(original, denoised, white):
     return jnp.clip(applied - mc, 0, 32760)
 
 
-def _use_pallas() -> bool:
-    import os
-
-    mode = os.environ.get("MLVFS_TPU_PN_PALLAS", "auto")
-    if mode == "0":
-        return False
-    if mode == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
 def _fix_column_noise_rggb(raw, white):
     """One direction over the full Bayer frame (patternnoise.c:312-355)."""
     r = raw[0::2, 0::2]
     g1 = raw[0::2, 1::2]
     g2 = raw[1::2, 0::2]
     b = raw[1::2, 1::2]
-    if _use_pallas():
-        from .patternnoise_pallas import edge_aware_blur_pallas
-
-        rs, g1s, g2s, bs = edge_aware_blur_pallas(r, g1, g2, b)
-    else:
-        rs, g1s, g2s, bs = _edge_aware_blur(r, g1, g2, b)
+    rs, g1s, g2s, bs = _edge_aware_blur(r, g1, g2, b)
     r2 = _fix_column_noise(r.astype(jnp.int32), rs, white)
     g1f = _fix_column_noise(g1.astype(jnp.int32), g1s, white)
     g2f = _fix_column_noise(g2.astype(jnp.int32), g2s, white)
@@ -192,21 +176,8 @@ def fix_pattern_noise_image(img: jnp.ndarray, white: int) -> jnp.ndarray:
         out = img.at[:he, :we].set(core.astype(img.dtype))
         return out
     raw = img.astype(jnp.int16).astype(jnp.int32)
-    if _use_pallas() and h % 2 == 0 and w % 2 == 0:
-        # interleaved-grid path: the Pallas blur and the column offsets run
-        # on the Bayer frame directly — no channel deinterleave/reassembly
-        # (those strided relayouts were ~2.7 ms/frame); gated bit-identical
-        # to the split formulation
-        import os
-
-        from .patternnoise_fused import fix_pattern_noise_direction
-
-        interp = os.environ.get("MLVFS_TPU_PN_INTERPRET") == "1"
-        raw = fix_pattern_noise_direction(raw, white, interpret=interp)
-        raw = fix_pattern_noise_direction(raw.T, white, interpret=interp).T
-    else:
-        raw = _fix_column_noise_rggb(raw, white)
-        raw = _fix_column_noise_rggb(raw.T, white).T
+    raw = _fix_column_noise_rggb(raw, white)
+    raw = _fix_column_noise_rggb(raw.T, white).T
     return raw.astype(jnp.uint16)
 
 

@@ -8,13 +8,13 @@ multiply applied to sufficiently bright pixels.
 Reference: stripes_compute_correction (stripes.c:143-248) — computed from the
 first frame of a clip only — and stripes_apply_correction (stripes.c:250-266).
 
-TPU split: calibration is a once-per-clip host reduction (vectorized NumPy
+Host/device split: calibration is a once-per-clip host reduction (vectorized NumPy
 histograms; the reference itself only ever runs it on frame 0); application
 runs on device for every frame as an exact fixed-point multiply. The
 reference applies the gain in double precision then truncates — reproduced
 here exactly with 32-bit integer arithmetic (the double is exact for these
-magnitudes), so the per-frame path is bit-identical and TPU-friendly (no
-float64 needed).
+magnitudes), so the per-frame path is bit-identical and needs no float64 on the
+device.
 """
 
 from __future__ import annotations

@@ -1,14 +1,13 @@
 """Device-side Bayer bitstream unpacking.
 
-TPU-first redesign of the reference's per-pixel fetch+rotate loop
+Vectorised redesign of the reference's per-pixel fetch+rotate loop
 (dng_get_image_data_inline, dng.c:813-843). Rather than a gather per pixel,
 we exploit the periodic structure of the packing: at ``bpp`` bits per pixel,
 ``lcm(16, bpp) / bpp`` pixels occupy ``lcm(16, bpp) / 16`` sixteen-bit words,
 so the word stream reshapes into independent fixed-size blocks (e.g. 14bpp →
 8 pixels from 7 words, the raw_pixblock of raw.h:63-79). Each output pixel is
-then a *static* pair of word columns, a shift, and a mask — pure VPU-friendly
-vector ops with no dynamic indexing, fully fusable by XLA into downstream
-kernels.
+then a *static* pair of word columns, a shift, and a mask — pure elementwise
+vector ops with no dynamic indexing, which XLA fuses into one loop kernel.
 
 The inverse (pack16) exists for writing MLV-packed data back out and for the
 round-trip tests.
@@ -93,103 +92,8 @@ def unpack_frame(words: jnp.ndarray, bpp: int, height: int, width: int) -> jnp.n
     return unpack_words(words, bpp, height * width).reshape(height, width)
 
 
-def _unpack_batch_pallas(words: jnp.ndarray, bpp: int, height: int, width: int) -> jnp.ndarray:
-    """Pallas TPU kernel: planar word layout in, planar pixel layout out.
-
-    The packed stream reshapes into (blocks, wpb) cells; a cheap XLA
-    transpose gives wpb word planes with blocks on the lane axis, the kernel
-    emits ppb pixel planes in one fused VPU pass, and a second transpose
-    interleaves pixels back. Measured ~1.6x the pure-XLA formulation at
-    1080p/14bpp on a v5e (the strided minor-dim variants are far slower).
-
-    Perf note (v5e, 1080p/14bpp/B=32, tools/profile_unpack4-8.py): the path
-    runs ~6.3 ms/batch (~5.1k f/s), of which the XLA minor-dim-7 input
-    relayout is the largest stage (~4.2 ms standalone). This is NOT
-    HBM-bound — pure byte traffic rooflines at ~0.9 ms/batch — it is
-    relayout-compute-bound, and four attempts to beat it all measured
-    slower end-to-end: (a) an MXU 0/1-selection matmul gathering straddling
-    word pairs in pure XLA (7.8 ms — f32 intermediates explode HBM
-    traffic); (b) the same matmul tile-resident in Pallas (6.6 ms); (c) the
-    matmul in single-pass bf16 via hi/lo byte-split (6.7 ms); (d) a fully
-    relayout-free kernel using the fact that the word→pixel lane map has
-    only 17 distinct shifts, as 18 rolls + masked selects (7.4 ms — vector
-    ops over 128-lane registers lose the lane parallelism the wide planar
-    layout gives the current kernel); (e) a 56-word/64-pixel superblock
-    layout giving the transpose a fat minor dim (8.0 ms); (f) bitcasting
-    word pairs to u32 to halve transposed elements (7.8 ms — the u16→u32
-    bitcast is itself a minor-dim relayout on TPU, ~6.5 ms standalone;
-    both in tools/profile_unpack9.py); (g) doing the relayout on the HOST
-    during the gather and handing the kernel its preferred planar layout
-    (tools/profile_unpack10.py): the kernel alone then runs 12.3k f/s at
-    B=32 / 17.0k at B=128 (vs 5.1k/10.0k full path — confirming the input
-    relayout is the entire roofline gap), but producing that layout costs
-    the host 1.3-3.2 ms/frame with numpy (0.27-0.74 ms/frame even at the
-    pure-memcpy floor, quiet vs loaded shared host) against the
-    ~0.04-0.13 ms/frame of device transpose it removes — a >6x net system
-    loss per host core, and it would reintroduce the host payload copy
-    that the zero-copy gather (_gather_packed_views) eliminated to put the
-    host leg over its 500 f/s target. The planar transpose + fused-shift
-    kernel below remains the fastest known formulation end to end.
-    """
-    import functools
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    ppb, wpb = _block_geometry(bpp)
-    n = height * width
-    b = words.shape[0]
-    nblocks = (n + ppb - 1) // ppb
-    lane_tile = 4096
-    nbp = (nblocks + lane_tile - 1) // lane_tile * lane_tile
-    needed = nblocks * wpb
-
-    w = words[:, :needed] if words.shape[1] >= needed else jnp.pad(
-        words, ((0, 0), (0, needed - words.shape[1]))
-    )
-    wt = w.reshape(b, nblocks, wpb).transpose(0, 2, 1)
-    wt = jnp.pad(wt, ((0, 0), (0, 0), (0, nbp - nblocks)))
-
-    mask = (1 << bpp) - 1
-
-    def kern(in_ref, out_ref):
-        for j in range(ppb):
-            off = j * bpp
-            a, sh = off >> 4, off & 15
-            w0 = in_ref[0, a, :].astype(jnp.uint32)
-            if sh + bpp <= 16:
-                val = w0 >> (16 - bpp - sh)
-            else:
-                w1 = in_ref[0, a + 1, :].astype(jnp.uint32)
-                val = ((w0 << 16) | w1) >> (32 - bpp - sh)
-            out_ref[0, j, :] = (val & mask).astype(jnp.uint16)
-
-    out = pl.pallas_call(
-        kern,
-        grid=(b, nbp // lane_tile),
-        in_specs=[
-            pl.BlockSpec((1, wpb, lane_tile), lambda bi, i: (bi, 0, i), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (1, ppb, lane_tile), lambda bi, i: (bi, 0, i), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((b, ppb, nbp), jnp.uint16),
-    )(wt)
-    out = out[:, :, :nblocks].transpose(0, 2, 1).reshape(b, nblocks * ppb)
-    return out[:, :n].reshape(b, height, width)
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
 def unpack_batch(words: jnp.ndarray, bpp: int, height: int, width: int) -> jnp.ndarray:
     """Unpack a batch: (B, n_words) u16 → (B, H, W) uint16."""
-    if _on_tpu():
-        return _unpack_batch_pallas(words, bpp, height, width)
     return jax.vmap(lambda ws: unpack_frame(ws, bpp, height, width))(words)
 
 

@@ -1,7 +1,7 @@
 """Device meshes and multi-chip sharding.
 
 The reference's only parallelism is a FUSE thread pool decoding independent
-frames concurrently (SURVEY.md section 2.4). The TPU-native equivalent is a
+frames concurrently (SURVEY.md section 2.4). The accelerator equivalent is a
 1-D device mesh over the *frame* axis: batches of packed frames are sharded
 across chips — pure data parallelism, because frames are independent by
 design (the reference's only cross-frame state is per-clip calibration).

@@ -1,7 +1,7 @@
 """Processing configuration — the public option surface.
 
 Mirrors struct mlvfs (mlvfs.h:32-48) and the reference CLI option table
-(main.c:1853-1882), with TPU-engine additions (batch size, prefetch depth,
+(main.c:1853-1882), with engine additions (batch size, prefetch depth,
 device mesh spec). Immutable: each conversion takes a snapshot, which removes
 the reference's webgui/reader data race by construction (SURVEY.md section 5).
 """
@@ -27,14 +27,14 @@ class ProcessingConfig:
     fps: float = 0.0  # --fps override for DNG FrameRate tag
     name_scheme: int = 0  # 0 default, 1 = --resolve-naming
 
-    # -- TPU engine options --
+    # -- engine options --
     batch_size: int = 16  # frames per device step
     prefetch: int = 2  # host->device pipeline depth (README.md:42 --prefetch)
     use_sidecar_idx: bool = True
     focus_pixel_dir: str = None  # directory with .fpm maps (default: package data)
     compress: str = "none"  # DNG output compression: none | lj92
     exact_luts: bool = False  # dual-ISO EV transforms: reference tables (gathers)
-    #                           instead of computed log2/exp2 (faster on TPU)
+    #                           instead of computed log2/exp2
     shard_devices: int = 0  # >1: shard the frame batch over this many devices
     resume: bool = False  # skip frames whose DNG already exists (restartable)
     export_all: bool = False  # convert --all: also write the .wav/.log/

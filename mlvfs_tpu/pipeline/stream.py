@@ -48,24 +48,3 @@ class BatchPrefetcher:
             for fut in inflight:
                 fut.cancel()
             self._pool.shutdown(wait=False)
-
-
-def enable_compile_cache():
-    """Persistent XLA compile cache (compiles are expensive, esp. remotely)."""
-    import os
-
-    if os.environ.get("MLVFS_TPU_NO_CACHE") == "1":
-        return
-    import jax
-
-    cache = os.environ.get(
-        "MLVFS_TPU_CACHE_DIR",
-        os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), ".jax_cache"),
-    )
-    try:
-        jax.config.update("jax_enable_compilation_cache", True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    except Exception:
-        pass

@@ -214,6 +214,14 @@ class VirtualFS:
                 self._converters[mlv_path] = conv
             return conv
 
+    def close(self):
+        """Wait for background readahead, then close the converters."""
+        with self._lock:
+            pool, self._ra_pool = self._ra_pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+        self.drop_converters()
+
     def drop_converters(self):
         """Discard converters (and their cached config/calibration/jit state)
         so the next build picks up a new config snapshot. Without this,

@@ -2,7 +2,7 @@
 
 Gives the test suite direct access to the reference C implementations of the
 deterministic pipeline stages, for bit-exact comparisons against the
-TPU-native implementations.
+JAX implementations.
 """
 
 import ctypes
@@ -358,7 +358,7 @@ def wav(path: str, seed: int = 1) -> bytes:
 
 def rand_after_seed(seed: int = 1) -> int:
     """glibc rand() value the oracle's srand(seed) produces — the value the
-    TPU-side writer must stamp to match byte-for-byte."""
+    writer here must stamp to match byte-for-byte."""
     libc = ctypes.CDLL("libc.so.6")
     libc.srand(ctypes.c_uint(seed))
     return int(libc.rand())

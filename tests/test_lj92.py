@@ -188,6 +188,7 @@ def test_encode_batch_matches_single(rng):
     assert lj92.encode_batch(imgs[:0], ncomp=2) == []
 
 
+@pytest.mark.skipif(not oracle.available(), reason="reference oracle unavailable")
 def test_decode_ff_at_refill_boundary():
     """Crafted stream whose first 8 entropy bytes contain no 0x00 but end in
     a stuffed 0xFF: a bulk-refill fast path that only screens for zero bytes
@@ -230,3 +231,31 @@ def test_decode_ff_at_refill_boundary():
     out, rcs = lj92.decode_batch([stream], w * h)
     assert rcs[0] == 0
     np.testing.assert_array_equal(out.reshape(h, w), ref_img)
+
+
+def test_library_name_keys_on_source_and_flags(tmp_path):
+    src = tmp_path / "lj92.cpp"
+    src.write_text("int f() { return 1; }\n")
+    flags = ("-O2", "-fPIC", "-shared")
+    a = lj92.library_path(str(src), flags)
+    assert a == lj92.library_path(str(src), flags)
+    assert lj92.library_path(str(src), flags + ("-g",)) != a
+    src.write_text("int f() { return 2; }\n")
+    assert lj92.library_path(str(src), flags) != a
+    assert os.path.dirname(a) == str(tmp_path)
+    # a library left under the old unkeyed name is never the one loaded
+    assert os.path.basename(lj92.library_path()) != "liblj92.so"
+
+
+def test_loaded_library_is_built_from_the_source(tmp_path):
+    import ctypes
+    import shutil
+
+    src = tmp_path / "lj92.cpp"
+    shutil.copy(lj92._SRC, src)
+    path = lj92.library_path(str(src))
+    assert not os.path.exists(path)
+    lj92._build(str(src), path)
+    assert os.path.exists(path)
+    assert hasattr(ctypes.CDLL(path), "lj92_encode_buf")
+    assert lj92._load()._name == lj92.library_path()

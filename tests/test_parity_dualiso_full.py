@@ -48,8 +48,8 @@ def test_full_mean23_parity(tmp_path, phase, gbrg):
     assert okm[0]
     assert _psnr(ref, ours) > 55, f"PSNR {_psnr(ref, ours):.1f}"
     # mismatching pixels are +-1-code EV-space rounding flips; the fraction
-    # is backend-dependent (measured ~1% on CPU, ~2.6% on real TPU at
-    # ~112 dB PSNR), so the gate allows the TPU float profile
+    # is backend-dependent (measured ~1% on CPU at ~112 dB PSNR), so the
+    # gate leaves room for an accelerator's float profile
     assert (ref != ours).mean() < 0.03
 
 
@@ -86,85 +86,3 @@ def test_full_rejects_non_dual(tmp_path):
     if not ok:
         np.testing.assert_array_equal(ours, img)
 
-
-def test_alias_filter_pallas_matches_xla():
-    """The VMEM-resident alias filter chain equals the XLA stages exactly
-    (which are themselves inside the PSNR-gated oracle comparison)."""
-    import jax.numpy as jnp
-    from mlvfs_tpu.ops.dualiso_full import _alias_filter_xla
-    from mlvfs_tpu.ops.alias_pallas import alias_filter
-
-    rng = np.random.default_rng(11)
-    for h, w in ((96, 256), (300, 256)):  # multi-chunk case: h > CORE via CORE patch
-        alias = jnp.asarray(rng.integers(0, 20000, (h, w), dtype=np.int32))
-        skip = jnp.asarray(rng.random((h, w)) < 0.2)
-        want = np.asarray(_alias_filter_xla(alias, skip, h, w))
-        got = np.asarray(alias_filter(alias, skip, h, w, interpret=True))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_alias_filter_pallas_multichunk():
-    """Chunk-boundary rows agree with the single-frame XLA result."""
-    import mlvfs_tpu.ops.alias_pallas as ap
-    import jax.numpy as jnp
-    from mlvfs_tpu.ops.dualiso_full import _alias_filter_xla
-
-    old_core = ap.CORE
-    ap.CORE = 64  # force several chunks at test size
-    import jax
-
-    jax.clear_caches()  # CORE is read at trace time, not part of the jit key
-    try:
-        rng = np.random.default_rng(12)
-        h, w = 200, 256
-        alias = jnp.asarray(rng.integers(0, 20000, (h, w), dtype=np.int32))
-        skip = jnp.asarray(rng.random((h, w)) < 0.2)
-        want = np.asarray(_alias_filter_xla(alias, skip, h, w))
-        got = np.asarray(ap.alias_filter(alias, skip, h, w, interpret=True))
-        np.testing.assert_array_equal(got, want)
-    finally:
-        ap.CORE = old_core
-        jax.clear_caches()
-
-
-def test_edge_pick_pallas_matches_xla():
-    """The VMEM-resident edge scorer+pick equals the XLA form exactly."""
-    import jax.numpy as jnp
-    from mlvfs_tpu.ops.amaze import edge_pick_xla
-    from mlvfs_tpu.ops.amaze_edge_pallas import edge_pick
-
-    rng = np.random.default_rng(13)
-    h, w = 120, 256
-    evgray = jnp.asarray(rng.integers(-300000, 460000, (h, w), dtype=np.int32))
-    EW_a = jnp.asarray(rng.integers(-300000, 460000, (h, w), dtype=np.int32))
-    EW_b = jnp.asarray(rng.integers(-300000, 460000, (h, w), dtype=np.int32))
-    s = jnp.asarray(np.where(rng.random(h) < 0.5, -1, 1).astype(np.int32))
-    restricted = jnp.asarray(rng.random((h, w)) < 0.3)
-    want = np.asarray(edge_pick_xla(evgray, EW_a, EW_b, s, restricted, h, w))
-    got = np.asarray(edge_pick(evgray, EW_a, EW_b, s, restricted, h, w, interpret=True))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_edge_pick_pallas_multichunk():
-    import jax
-    import jax.numpy as jnp
-    import mlvfs_tpu.ops.amaze_edge_pallas as ep
-    from mlvfs_tpu.ops.amaze import edge_pick_xla
-
-    old = ep.CORE
-    ep.CORE = 48
-    jax.clear_caches()
-    try:
-        rng = np.random.default_rng(14)
-        h, w = 150, 256
-        evgray = jnp.asarray(rng.integers(-300000, 460000, (h, w), dtype=np.int32))
-        EW_a = jnp.asarray(rng.integers(-300000, 460000, (h, w), dtype=np.int32))
-        EW_b = jnp.asarray(rng.integers(-300000, 460000, (h, w), dtype=np.int32))
-        s = jnp.asarray(np.where(rng.random(h) < 0.5, -1, 1).astype(np.int32))
-        restricted = jnp.asarray(rng.random((h, w)) < 0.3)
-        want = np.asarray(edge_pick_xla(evgray, EW_a, EW_b, s, restricted, h, w))
-        got = np.asarray(ep.edge_pick(evgray, EW_a, EW_b, s, restricted, h, w, interpret=True))
-        np.testing.assert_array_equal(got, want)
-    finally:
-        ep.CORE = old
-        jax.clear_caches()

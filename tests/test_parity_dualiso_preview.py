@@ -137,46 +137,3 @@ def test_preview_fit_device_small_geometry_and_mixed_batch(tmp_path):
             assert abs(float(b[i]) - f.b) <= 1e-3 * max(abs(f.b), 1.0), (b[i], f.b)
             assert abs(int(shadow[i]) - f.shadow) <= 1, (shadow[i], f.shadow)
 
-
-@pytest.mark.parametrize(
-    "h,w,B",
-    [
-        (96, 320, 4),
-        (130, 256, 4),
-        (960, 1280, 4),
-        (128, 256, 1),   # exact chunk multiple; single-frame batch
-        (256, 384, 3),   # chunk boundary falls mid-parity-pair carry
-    ],
-)
-def test_apply_preview_pallas_matches_xla(h, w, B):
-    """The VMEM Pallas row kernel must be bit-identical to the lax.scan
-    form across drs phases, overexposure chains, shadow replacement, and
-    non-multiple-of-chunk heights."""
-    from mlvfs_tpu.ops.dualiso_preview_pallas import apply_preview_pallas
-
-    rng = np.random.default_rng(31)
-    black, white = 2048, 15000
-    imgs = rng.integers(0, 1 << 14, (B, h, w), dtype=np.uint16)
-    # force long replacement chains: a band of overexposed pixels and a
-    # band below the shadow threshold
-    imgs[:, h // 4 : h // 2, : w // 3] = white + 7
-    imgs[:, h // 2 :, w // 2 :] = 5
-    a = np.array([0.23, 1.7, 0.5, 1.0], np.float32)[:B]
-    b = np.array([3.0, -11.0, 0.0, 2.5], np.float32)[:B]
-    shadow = np.array([900.0, 40.0, 0.0, 3000.0], np.float32)[:B]
-    drs = np.arange(B, dtype=np.int32) % 4
-
-    ref = np.asarray(
-        dualiso.apply_preview_xla(
-            jnp.asarray(imgs), jnp.asarray(a), jnp.asarray(b),
-            jnp.asarray(shadow), jnp.asarray(drs), black, white,
-        )
-    )
-    got = np.asarray(
-        apply_preview_pallas(
-            jnp.asarray(imgs), jnp.asarray(a), jnp.asarray(b),
-            jnp.asarray(shadow), jnp.asarray(drs), black, white,
-            interpret=jax.default_backend() != "tpu",
-        )
-    )
-    np.testing.assert_array_equal(ref, got)

@@ -36,120 +36,6 @@ def test_pattern_noise_parity(size):
     np.testing.assert_array_equal(ref, ours)
 
 
-def test_blur_pallas_matches_xla():
-    """The VMEM-resident Pallas blur equals the XLA formulation exactly
-    (which is itself bit-exact vs the C — the test above)."""
-    from mlvfs_tpu.ops.patternnoise import _edge_aware_blur
-    from mlvfs_tpu.ops.patternnoise_pallas import edge_aware_blur_pallas
-
-    rng = np.random.default_rng(3)
-    h2, w2 = 37, 96  # odd row count exercises the padding
-    chans = [
-        jnp.asarray(rng.integers(-2000, 16000, (h2, w2), dtype=np.int32))
-        for _ in range(4)
-    ]
-    # a flat patch makes wide windows; a hard edge breaks them
-    chans[1] = chans[1].at[10:20].set(4000)
-    want = _edge_aware_blur(*chans)
-    got = edge_aware_blur_pallas(*chans, interpret=True)
-    for g, w_ in zip(got, want):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w_))
-
-
-def test_blur_pallas_wide_frame():
-    """2.5K-width channels (1296 half-res) exercise the block VMEM sizing."""
-    from mlvfs_tpu.ops.patternnoise import _edge_aware_blur
-    from mlvfs_tpu.ops.patternnoise_pallas import edge_aware_blur_pallas
-
-    rng = np.random.default_rng(5)
-    h2, w2 = 16, 1296
-    chans = [
-        jnp.asarray(rng.integers(0, 16000, (h2, w2), dtype=np.int32))
-        for _ in range(4)
-    ]
-    want = _edge_aware_blur(*chans)
-    got = edge_aware_blur_pallas(*chans, interpret=True)
-    for g, w_ in zip(got, want):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w_))
-
-
-def test_blur_interleaved_matches_split():
-    """The interleaved-grid blur equals deinterleave→blur→reinterleave of
-    the split formulation exactly (even dims; PN frames are always even)."""
-    import jax.numpy as jnp
-    from mlvfs_tpu.ops.patternnoise import _edge_aware_blur
-    from mlvfs_tpu.ops.patternnoise_fused import blur_interleaved
-
-    rng = np.random.default_rng(7)
-    h, w = 72, 192
-    img = jnp.asarray(rng.integers(-2000, 16000, (h, w), dtype=np.int32))
-    r, g1, g2, b = img[0::2, 0::2], img[0::2, 1::2], img[1::2, 0::2], img[1::2, 1::2]
-    rs, g1s, g2s, bs = _edge_aware_blur(r, g1, g2, b)
-    top = jnp.stack([rs, g1s], axis=-1).reshape(h // 2, w)
-    bot = jnp.stack([g2s, bs], axis=-1).reshape(h // 2, w)
-    want = np.asarray(jnp.stack([top, bot], axis=1).reshape(h, w))
-    got = np.asarray(blur_interleaved(img, interpret=True))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_blur_interleaved_multichunk():
-    import jax
-    import jax.numpy as jnp
-    import mlvfs_tpu.ops.patternnoise_fused as pf
-    from mlvfs_tpu.ops.patternnoise import _edge_aware_blur
-
-    old = pf.R_SUB
-    pf.R_SUB = 16
-    jax.clear_caches()
-    try:
-        rng = np.random.default_rng(8)
-        h, w = 90, 192  # not a multiple of the chunk → truncated last chunk
-        img = jnp.asarray(rng.integers(-2000, 16000, (h, w), dtype=np.int32))
-        r, g1, g2, b = img[0::2, 0::2], img[0::2, 1::2], img[1::2, 0::2], img[1::2, 1::2]
-        rs, g1s, g2s, bs = _edge_aware_blur(r, g1, g2, b)
-        top = jnp.stack([rs, g1s], axis=-1).reshape(h // 2, w)
-        bot = jnp.stack([g2s, bs], axis=-1).reshape(h // 2, w)
-        want = np.asarray(jnp.stack([top, bot], axis=1).reshape(h, w))
-        got = np.asarray(pf.blur_interleaved(img, interpret=True))
-        np.testing.assert_array_equal(got, want)
-    finally:
-        pf.R_SUB = old
-        jax.clear_caches()
-
-
-def test_direction_interleaved_matches_split():
-    """Full single-direction interleaved path (blur + column offsets) equals
-    the split formulation bit for bit."""
-    import jax.numpy as jnp
-    from mlvfs_tpu.ops.patternnoise import _fix_column_noise_rggb
-    from mlvfs_tpu.ops.patternnoise_fused import fix_pattern_noise_direction
-
-    rng = np.random.default_rng(9)
-    h, w = 72, 192
-    img = _noisy_frame(h, w, seed=4).astype(np.int32)
-    want = np.asarray(_fix_column_noise_rggb(jnp.asarray(img), 15000))
-    got = np.asarray(fix_pattern_noise_direction(jnp.asarray(img), 15000, interpret=True))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pattern_noise_parity_fused_path():
-    """End-to-end C parity with the interleaved (Pallas-interpret) path
-    forced — the path real TPUs take."""
-    import os
-
-    h, w = 64, 96
-    img = _noisy_frame(h, w)
-    ref = oracle.fix_pattern_noise(img.astype(np.int16), white=15000).astype(np.uint16)
-    os.environ["MLVFS_TPU_PN_PALLAS"] = "1"
-    os.environ["MLVFS_TPU_PN_INTERPRET"] = "1"
-    try:
-        ours = np.asarray(fix_pattern_noise_batch(jnp.asarray(img[None]), 15000))[0]
-    finally:
-        os.environ.pop("MLVFS_TPU_PN_PALLAS", None)
-        os.environ.pop("MLVFS_TPU_PN_INTERPRET", None)
-    np.testing.assert_array_equal(ref, ours)
-
-
 def test_pattern_noise_small_dimensions_parity():
     """Frames whose half-res dimension is below the +-25 blur window (e.g.
     40 px tall -> 20 half-res rows for the transposed row pass) must still

@@ -4,7 +4,7 @@ The DNG header has had a byte-exact oracle gate since round 1; these close
 the same loop for wav.c:189-346 and gif.c:82-234. The WAV's only stochastic
 byte run (bext originator_reference, stamped from rand(), wav.c:253) is
 pinned by seeding the oracle's srand and stamping the same glibc value in
-the TPU-side writer.
+our writer.
 """
 
 import numpy as np

@@ -26,7 +26,7 @@ def test_prefetcher_order_and_results():
     assert set(fetched) == {(0, 1), (2, 3), (4,)}
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_convert_matches_unsharded(tmp_path):
     src = str(tmp_path / "SHARD.MLV")
     spec = synth.write_mlv(src, width=256, height=64, frames=16)
@@ -42,7 +42,7 @@ def test_sharded_convert_matches_unsharded(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_dualiso_convert(tmp_path):
     src = str(tmp_path / "DI8.MLV")
     spec = synth.SynthSpec(width=1280, height=960, frames=8, dual_iso=3, seed=3)
@@ -69,7 +69,7 @@ def test_sharded_dualiso_convert(tmp_path):
         )
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_convert_nondivisible_tail(tmp_path):
     """19 frames / batch 8 → tail of 3: the tail is padded to the mesh
     multiple and runs on the same sharded program (no unsharded fallback),
@@ -105,7 +105,7 @@ def test_pad_frames_and_batch_target():
         assert batch_target(1, mesh) == 8
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_dualiso_analysis_matches_unsharded():
     """The device dual-ISO analysis (hdr_check + field/white/exposure order
     statistics + decisions) sharded over an 8-device frame mesh produces the
@@ -140,7 +140,7 @@ def test_sharded_dualiso_analysis_matches_unsharded():
         np.testing.assert_array_equal(np.asarray(r), np.asarray(g))
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_amaze_edge_matches_unsharded():
     """The flagship amaze-edge reconstruction (interp_method=0, the XLA
     amaze_core formulation on this backend) sharded over an 8-device frame
@@ -208,7 +208,7 @@ def test_sharded_amaze_edge_matches_unsharded():
     np.testing.assert_array_equal(ref, got)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_zero_copy_fetch_matches_staged(tmp_path):
     """The zero-copy sharded gather (_put_views_sharded, per-device memmap
     view transfers assembled via make_array_from_single_device_arrays) must

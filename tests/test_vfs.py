@@ -216,3 +216,14 @@ def test_dashboard_rejects_unknown_params(mlv_dir):
     finally:
         server.shutdown()
         server.server_close()
+
+
+def test_close_waits_for_readahead_and_drops_converters(mlv_dir):
+    # readahead 2 over a 3-frame clip: reading frame 0 builds [0, 1] and
+    # schedules [2] in the background
+    fs = VirtualFS(mlv_dir, ProcessingConfig(batch_size=2), readahead=2)
+    fs.read("/M01-0001.MLV/M01-0001_000000.dng")
+    assert fs._ra_pool is not None
+    fs.close()
+    assert fs._ra_pool is None and not fs._converters and not fs._ra_futures
+    assert fs.buffers.peek((os.path.join(mlv_dir, "M01-0001.MLV"), "#dng", 2)) is not None
